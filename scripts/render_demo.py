@@ -40,21 +40,21 @@ def main(argv=None) -> int:
     parser.add_argument("--skybox", default=None,
                         help="cubemap dir (px/nx/... faces) or .ktx")
     parser.add_argument("--ai-checkpoint", default=None,
-                        help="orbax dir: enable frame interpolation blending")
+                        help="checkpoint dir: enable frame interpolation blending")
     parser.add_argument("--ai-blend", type=float, default=0.35)
     parser.add_argument("--ai-upscale", action="store_true",
                         help="render at half res + neural 2x reconstruction "
                              "(assets_out/upscaler_2x checkpoint)")
     args = parser.parse_args(argv)
 
-    from trident_tpu.app import Application
-    from trident_tpu.core.config import AiConfig, EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import (
+    from trident.app import Application
+    from trident.core.config import AiConfig, EngineConfig, RenderConfig
+    from trident.ecs.components import (
         LightComponent, LightType, MeshComponent, TextureComponent,
         TransformComponent,
     )
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.io.image import checkerboard, save_png
+    from trident.geometry.primitives import PrimitiveType
+    from trident.io.image import checkerboard, save_png
 
     cfg = EngineConfig(
         render=RenderConfig(width=args.width, height=args.height,
@@ -97,12 +97,12 @@ def main(argv=None) -> int:
             intensity=4.0, cast_shadows=True))
 
     if args.skybox:
-        from trident_tpu.assets.skybox import load_skybox_mips
+        from trident.assets.skybox import load_skybox_mips
 
         levels = load_skybox_mips(args.skybox)
         app.renderer.set_skybox(levels[0], mips=levels[1:])
     else:
-        from trident_tpu.assets.skybox import solid_skybox
+        from trident.assets.skybox import solid_skybox
 
         app.renderer.set_skybox(solid_skybox((0.18, 0.28, 0.45)))
 
@@ -133,7 +133,7 @@ def main(argv=None) -> int:
 
 
 def _importer(app, path):
-    from trident_tpu.assets.model_loader import load_model
+    from trident.assets.model_loader import load_model
 
     data = load_model(path)
     base, _ = app.renderer.append_meshes(data.meshes, data.materials)

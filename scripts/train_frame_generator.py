@@ -2,7 +2,7 @@
 """Train the frame-interpolation net on captured frames (CLI).
 
 The workflow analogue of the reference's Scripts/train_frame_generator.py
-(PyTorch→ONNX): frames in, orbax checkpoint out — no export step, the same
+(PyTorch→ONNX): frames in, .npz checkpoint out — no export step, the same
 chip serves inference inline in the render loop.
 
 Examples:
@@ -38,7 +38,7 @@ def main(argv=None) -> int:
                         help="init + save an untrained checkpoint (CI refresh)")
     args = parser.parse_args(argv)
 
-    from trident_tpu.ai.train import TrainConfig, train
+    from trident.ai.train import TrainConfig, train
 
     config = TrainConfig(
         source=args.source,

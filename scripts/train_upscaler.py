@@ -7,7 +7,7 @@ Each sample renders one random scene twice with the same camera: the
 target at full resolution and the input at half resolution (a real
 half-res render, aliasing and all — exactly what the ai_upscale mode
 feeds the net at runtime). Reports PSNR vs the bilinear baseline on a
-held-out set and saves an orbax checkpoint.
+held-out set and saves an .npz checkpoint.
 
     python scripts/train_upscaler.py --pairs 192 --steps 1500 \
         --out assets_out/upscaler_2x
@@ -32,14 +32,14 @@ def build_pool(res: int, seed: int, *, shadows: bool = True, grid: int = 6,
     several pools is what keeps the net usable out of distribution — the
     round-2 spatial checkpoint, trained on one shadowed 6x6 pool, scored
     ~1 dB BELOW bilinear on an unshadowed single-cube scene."""
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import (
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.components import (
         LightComponent, LightType, MeshComponent, TextureComponent,
         TransformComponent)
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.io.image import checkerboard
-    from trident_tpu.render.renderer import Renderer
+    from trident.ecs.registry import Registry
+    from trident.geometry.primitives import PrimitiveType
+    from trident.io.image import checkerboard
+    from trident.render.renderer import Renderer
 
     rng = np.random.default_rng(seed)
     r = Renderer(EngineConfig(render=RenderConfig(
@@ -84,7 +84,7 @@ POOL_SPECS = (
 
 
 def randomize(r, reg, ents, sun, rng, spread=4.5, scale_range=(0.4, 1.4)):
-    from trident_tpu.ecs.components import (
+    from trident.ecs.components import (
         LightComponent, TextureComponent, TransformComponent)
 
     for e in ents:
@@ -115,7 +115,7 @@ def render_sequence_pairs(n_pairs: int, res: int, seed: int,
     half-res input + full-res target + half-res depth + both cameras'
     view-projections. The warp input is built with the SAME
     warp_previous the runtime uses, so train == inference."""
-    from trident_tpu.ai.upscaler import warp_previous
+    from trident.ai.upscaler import warp_previous
 
     pools = [build_pool(res, seed + i, **spec)
              for i, spec in enumerate(POOL_SPECS)]
@@ -138,7 +138,7 @@ def render_sequence_pairs(n_pairs: int, res: int, seed: int,
         # is then an identity map with stale content, the history-mismatch
         # case animated scenes hit at runtime
         if rng.random() < 0.3:
-            from trident_tpu.ecs.components import TransformComponent
+            from trident.ecs.components import TransformComponent
 
             for e in ents:
                 t = reg.get(e, TransformComponent)
@@ -238,7 +238,7 @@ def main():
                          "continuing a run costs little extra")
     args = ap.parse_args()
 
-    from trident_tpu.ai.upscaler import (
+    from trident.ai.upscaler import (
         UpscalerNet, init_upscaler, load_upscaler, psnr, save_upscaler)
 
     res_list = [int(r) for r in str(args.res).split(",") if r]
@@ -260,7 +260,7 @@ def main():
 
     model = UpscalerNet(base_channels=args.channels)
     if args.init_from:
-        from trident_tpu.ai.upscaler import upscaler_in_channels
+        from trident.ai.upscaler import upscaler_in_channels
 
         params, bc = load_upscaler(args.init_from)
         if bc != args.channels or (upscaler_in_channels(params)

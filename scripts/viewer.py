@@ -4,7 +4,7 @@
 The reference's user surface is the Trident-Forge editor (live viewport +
 ImGuizmo transforms, ApplicationLayer.cpp:38-227, SceneViewportPanel.cpp:
 63-100, plus the 9 editor panels under Trident-Forge/src/Panels/). The
-TPU rebuild is headless-first, so the interactive surface is a localhost
+JAX rebuild is headless-first, so the interactive surface is a localhost
 web page streaming `present()` frames with panel equivalents:
 
   * orbit / pan / dolly editor camera (drag / shift-drag / wheel); Scene /
@@ -46,7 +46,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 _PAGE = """<!DOCTYPE html>
-<html><head><title>trident_tpu viewer</title><style>
+<html><head><title>trident viewer</title><style>
  body { margin:0; background:#14151a; color:#cfd2dc; font:13px monospace;
         display:flex; height:100vh; }
  #view { flex:1; display:flex; align-items:center; justify-content:center; }
@@ -448,7 +448,7 @@ class ViewerServer:
         return buf.getvalue()
 
     def entities(self):
-        from trident_tpu.ecs.components import TagComponent
+        from trident.ecs.components import TagComponent
 
         with self.lock:
             reg = self.app.renderer.registry
@@ -459,7 +459,7 @@ class ViewerServer:
         return {"entities": out}
 
     def entity(self, eid: int):
-        from trident_tpu.ecs.inspect import list_entity
+        from trident.ecs.inspect import list_entity
 
         with self.lock:
             return {"id": eid,
@@ -469,8 +469,8 @@ class ViewerServer:
         """The AnimationGraphPanel analogue: the entity's animation state
         machine as a live graph (anim/graph_view.py), or its clip playback
         info when it plays a plain clip."""
-        from trident_tpu.anim.graph_view import describe_state_machine
-        from trident_tpu.ecs.components import AnimationComponent
+        from trident.anim.graph_view import describe_state_machine
+        from trident.ecs.components import AnimationComponent
 
         with self.lock:
             anim = self.app.renderer.registry.try_get(eid, AnimationComponent)
@@ -499,7 +499,7 @@ class ViewerServer:
                            "average_inference_ms": ai.average_inference_ms}}
 
     def console(self, min_level: int = 0):
-        from trident_tpu.core.log import ConsoleLog
+        from trident.core.log import ConsoleLog
 
         import logging
 
@@ -511,7 +511,7 @@ class ViewerServer:
     def assets(self, directory: str | None = None):
         """Content-browser listing rooted at assets_root (the reference's
         ContentBrowserPanel roots at Assets/): subdirs + importable files."""
-        from trident_tpu.assets.scene_loader import SUPPORTED_EXTENSIONS
+        from trident.assets.scene_loader import SUPPORTED_EXTENSIONS
 
         root = self.assets_root
         d = os.path.abspath(os.path.join(root, directory or "."))
@@ -547,7 +547,7 @@ class ViewerServer:
             rb()
 
     def command(self, op: str, body: dict):
-        from trident_tpu.ecs.inspect import set_field
+        from trident.ecs.inspect import set_field
 
         with self.lock:
             self._bind_engine_thread()
@@ -575,8 +575,8 @@ class ViewerServer:
             elif op == "anim_param":
                 # AnimationGraphPanel edit path: write a state-machine
                 # parameter (float/int/bool/trigger) on the entity
-                from trident_tpu.anim.graph_view import set_parameter
-                from trident_tpu.ecs.components import AnimationComponent
+                from trident.anim.graph_view import set_parameter
+                from trident.ecs.components import AnimationComponent
 
                 anim = r.registry.try_get(int(body["entity"]),
                                           AnimationComponent)
@@ -592,7 +592,7 @@ class ViewerServer:
                 #   rotate    — dx spins yaw (euler Y), dy pitches (euler X)
                 #   scale     — vertical drag scales uniformly (exp curve,
                 #     clamped positive)
-                from trident_tpu.ecs.components import TransformComponent
+                from trident.ecs.components import TransformComponent
 
                 t = r.registry.try_get(int(body["entity"]), TransformComponent)
                 mode = body.get("mode", "translate")
@@ -661,9 +661,9 @@ class ViewerServer:
                 r.set_active_registry(app.scene.editor_registry)
                 r.runtime_camera_ready = False
             elif op == "spawn":
-                from trident_tpu.ecs.components import (
+                from trident.ecs.components import (
                     MeshComponent, TagComponent, TransformComponent)
-                from trident_tpu.geometry.primitives import PrimitiveType
+                from trident.geometry.primitives import PrimitiveType
 
                 prim = {"cube": PrimitiveType.CUBE,
                         "sphere": PrimitiveType.SPHERE,
@@ -695,13 +695,13 @@ class ViewerServer:
 
 
 def build_app(args):
-    from trident_tpu.app import Application
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import (
+    from trident.app import Application
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.components import (
         LightComponent, LightType, MeshComponent, TagComponent,
         TextureComponent, TransformComponent)
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.io.image import checkerboard
+    from trident.geometry.primitives import PrimitiveType
+    from trident.io.image import checkerboard
 
     cfg = EngineConfig(render=RenderConfig(
         width=args.width, height=args.height, shadows=args.shadows))
@@ -745,8 +745,7 @@ def main(argv=None) -> int:
     parser.add_argument("--assets", default=None,
                         help="content-browser root (default: cwd)")
     parser.add_argument("--cpu", action="store_true",
-                        help="force the CPU backend (the env var alone does "
-                             "not defeat a pinned TPU plugin platform)")
+                        help="force the CPU backend")
     args = parser.parse_args(argv)
 
     if args.cpu:

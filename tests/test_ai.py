@@ -8,16 +8,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trident_tpu.ai.dataset import TripletDataset, list_frames
-from trident_tpu.ai.metrics import psnr, ssim
-from trident_tpu.ai.model import init_model
-from trident_tpu.ai.train import TrainConfig, train
+from trident.ai.dataset import TripletDataset, list_frames
+from trident.ai.metrics import psnr, ssim
+from trident.ai.model import init_model
+from trident.ai.train import TrainConfig, train
 
 REF_DATASET = "/root/reference/Dataset"
 
 
 def make_frames(tmp_path, n=6, size=32):
-    from trident_tpu.io.image import save_png
+    from trident.io.image import save_png
 
     rng = np.random.default_rng(0)
     base = rng.random((size, size, 3)).astype(np.float32)
@@ -67,7 +67,7 @@ def test_trainer_improves_and_checkpoints(tmp_path):
     assert summary["best_psnr"] > 0
     assert summary["checkpoint"] and os.path.exists(summary["checkpoint"])
     # restore and run inference
-    from trident_tpu.ai.train import load_checkpoint
+    from trident.ai.train import load_checkpoint
 
     model, variables = load_checkpoint(str(tmp_path / "ckpt"), cfg)
     out = model.apply(variables, jnp.zeros((1, 16, 16, 6)), train=False)
@@ -88,8 +88,8 @@ def test_trainer_on_reference_dataset(tmp_path):
 
 
 def test_frame_generator_worker():
-    from trident_tpu.ai.frame_generator import FrameGenerator
-    from trident_tpu.ai.model import init_model
+    from trident.ai.frame_generator import FrameGenerator
+    from trident.ai.model import init_model
 
     model, variables = init_model(jax.random.PRNGKey(0), (16, 16), base_channels=4)
     gen = FrameGenerator(resolution=(16, 16))
@@ -116,11 +116,11 @@ def test_frame_generator_worker():
 
 
 def test_sprite_rendering():
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import SpriteComponent, TransformComponent
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.io.image import checkerboard
-    from trident_tpu.render.renderer import Renderer
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.components import SpriteComponent, TransformComponent
+    from trident.ecs.registry import Registry
+    from trident.io.image import checkerboard
+    from trident.render.renderer import Renderer
 
     r = Renderer(EngineConfig(render=RenderConfig(width=64, height=64,
                                                   use_pallas=False)))
@@ -152,8 +152,8 @@ def test_periodic_checkpoint_keeps_best_latest(tmp_path):
 
     import optax
 
-    from trident_tpu.ai.model import init_model
-    from trident_tpu.ai.train import TrainState, save_checkpoint
+    from trident.ai.model import init_model
+    from trident.ai.train import TrainState, save_checkpoint
 
     model, variables = init_model(jax.random.PRNGKey(0),
                                   resolution=(32, 32), base_channels=8)
@@ -166,5 +166,5 @@ def test_periodic_checkpoint_keeps_best_latest(tmp_path):
     with open(tmp_path / "latest.json") as f:
         latest = json.load(f)
     assert latest["step"] == 3
-    assert latest["path"] == "step_000003"
-    assert best.endswith("step_000003")
+    assert latest["path"] == "step_000003.npz"
+    assert best.endswith("step_000003.npz")

@@ -3,18 +3,18 @@
 import numpy as np
 import pytest
 
-from trident_tpu.anim.blend_tree import Blend2Node, BlendSample, BlendSpace1DNode, ClipNode
-from trident_tpu.anim.data import AnimationClip, Bone, Skeleton, TransformChannel, normalize_bone_name
-from trident_tpu.anim.player import AnimationPlayer
-from trident_tpu.anim.pose import Pose, blend_pose, compose_skinning_matrices, sample_clip_pose
-from trident_tpu.anim.service import AnimationAssetService
-from trident_tpu.anim.state_machine import (
+from trident.anim.blend_tree import Blend2Node, BlendSample, BlendSpace1DNode, ClipNode
+from trident.anim.data import AnimationClip, Bone, Skeleton, TransformChannel, normalize_bone_name
+from trident.anim.player import AnimationPlayer
+from trident.anim.pose import Pose, blend_pose, compose_skinning_matrices, sample_clip_pose
+from trident.anim.service import AnimationAssetService
+from trident.anim.state_machine import (
     AnimationStateMachine, Comparison, Condition, Layer, ParameterType, State, Transition,
 )
-from trident_tpu.anim.system import AnimationSystem
-from trident_tpu.ecs.components import AnimationComponent, TransformComponent
-from trident_tpu.ecs.registry import Registry
-from trident_tpu.mathx.quat import quat_from_euler_deg
+from trident.anim.system import AnimationSystem
+from trident.ecs.components import AnimationComponent, TransformComponent
+from trident.ecs.registry import Registry
+from trident.mathx.quat import quat_from_euler_deg
 
 
 def two_bone_skeleton():
@@ -114,7 +114,7 @@ def test_blend_space_1d():
         BlendSample(0.0, ClipNode(translation_clip(), speed=0.0)),
         BlendSample(1.0, ClipNode(rotation_clip(), speed=0.0)),
     ])
-    from trident_tpu.anim.blend_tree import EvalContext
+    from trident.anim.blend_tree import EvalContext
     ctx = EvalContext(sk, {"speed": 0.0}, Pose.bind(sk))
     pose = node.evaluate(ctx, 0.0)
     np.testing.assert_allclose(pose.position[0], [0, 0, 0], atol=1e-5)

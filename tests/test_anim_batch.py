@@ -3,15 +3,15 @@ player and O(1) dispatches for many instances of one (skeleton, clip)."""
 
 import numpy as np
 
-from trident_tpu.anim import batch as batch_mod
-from trident_tpu.anim.batch import BatchedClipSampler
-from trident_tpu.anim.data import AnimationClip, Bone, Skeleton, TransformChannel
-from trident_tpu.anim.player import AnimationPlayer
-from trident_tpu.anim.service import AnimationAssetService
-from trident_tpu.anim.system import AnimationSystem
-from trident_tpu.ecs.components import AnimationComponent
-from trident_tpu.ecs.registry import Registry
-from trident_tpu.mathx.quat import quat_from_euler_deg
+from trident.anim import batch as batch_mod
+from trident.anim.batch import BatchedClipSampler
+from trident.anim.data import AnimationClip, Bone, Skeleton, TransformChannel
+from trident.anim.player import AnimationPlayer
+from trident.anim.service import AnimationAssetService
+from trident.anim.system import AnimationSystem
+from trident.ecs.components import AnimationComponent
+from trident.ecs.registry import Registry
+from trident.mathx.quat import quat_from_euler_deg
 
 
 def chain_skeleton(n=5):
@@ -123,7 +123,7 @@ def test_instance_count_bucketing_no_retrace():
     """Adding one instance must not retrace: N pads to pow2 buckets. The
     jitted sampler is MODULE-level so equal-shape samplers (and rebuilt
     LRU evictees) share one compiled executable."""
-    from trident_tpu.anim import batch as batch_mod
+    from trident.anim import batch as batch_mod
 
     sk = chain_skeleton(3)
     clip = busy_clip()

@@ -8,7 +8,7 @@ import struct
 import numpy as np
 import pytest
 
-from trident_tpu.assets.model_loader import load_model, load_obj
+from trident.assets.model_loader import load_model, load_obj
 
 
 def write_obj(tmp_path):
@@ -138,7 +138,7 @@ def test_gltf_skinned(tmp_path):
 
 
 def test_gltf_animation_drives_skinning(tmp_path):
-    from trident_tpu.anim.player import AnimationPlayer
+    from trident.anim.player import AnimationPlayer
 
     data = load_model(make_skinned_gltf(tmp_path))
     player = AnimationPlayer(data.skeleton)
@@ -172,11 +172,11 @@ def test_glb_roundtrip(tmp_path):
 
 def test_skinned_render_end_to_end(tmp_path):
     """Animated glTF → entities → rendered frame with bent quad."""
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import AnimationComponent
-    from trident_tpu.ecs.scene import Scene
-    from trident_tpu.render.renderer import Renderer
-    from trident_tpu.assets.scene_loader import import_model_entities
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.components import AnimationComponent
+    from trident.ecs.scene import Scene
+    from trident.render.renderer import Renderer
+    from trident.assets.scene_loader import import_model_entities
 
     path = make_skinned_gltf(tmp_path)
     r = Renderer(EngineConfig(render=RenderConfig(width=96, height=96,
@@ -252,10 +252,10 @@ def test_gltf_embedded_texture(tmp_path):
     assert data.materials[0].base_color_texture == 0
 
     # end-to-end: import resolves a texture slot
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.render.renderer import Renderer
-    from trident_tpu.assets.scene_loader import import_model_entities
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.registry import Registry
+    from trident.render.renderer import Renderer
+    from trident.assets.scene_loader import import_model_entities
 
     r = Renderer(EngineConfig(render=RenderConfig(width=32, height=32,
                                                   use_pallas=False)))
@@ -272,9 +272,9 @@ def test_model_hot_reload(tmp_path):
     broken edit keeps the old geometry."""
     import os
 
-    from trident_tpu.app import Application
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import MeshComponent
+    from trident.app import Application
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.components import MeshComponent
 
     assets = tmp_path / "Assets"
     for sub in ("Shaders", "Models", "Textures"):

@@ -7,14 +7,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from trident_tpu.core.config import EngineConfig, RenderConfig
-from trident_tpu.ecs.components import (
+from trident.core.config import EngineConfig, RenderConfig
+from trident.ecs.components import (
     MeshComponent, TextureComponent, TransformComponent,
 )
-from trident_tpu.ecs.registry import Registry
-from trident_tpu.geometry.primitives import PrimitiveType
-from trident_tpu.io.image import checkerboard
-from trident_tpu.render.renderer import Renderer
+from trident.ecs.registry import Registry
+from trident.geometry.primitives import PrimitiveType
+from trident.io.image import checkerboard
+from trident.render.renderer import Renderer
 
 
 def _grid_renderer(n=3):
@@ -37,9 +37,9 @@ def _grid_renderer(n=3):
 
 
 def test_corner_stage_broadcast_matches_gather():
-    from trident_tpu.ecs.components import TransformComponent as TC
-    from trident_tpu.ops.corner import build_draw_rows, corner_stage
-    from trident_tpu.render.frame import (
+    from trident.ecs.components import TransformComponent as TC
+    from trident.ops.corner import build_draw_rows, corner_stage
+    from trident.render.frame import (
         build_draw_params, gather_mesh_draws,
     )
 
@@ -67,12 +67,12 @@ def test_corner_stage_broadcast_matches_gather():
 
 
 def test_render_frame_broadcast_matches_gather():
-    from trident_tpu.render.frame import (
+    from trident.render.frame import (
         build_draw_params, gather_mesh_draws, geometry_to_device,
     )
-    from trident_tpu.render.lights import gather_lights
-    from trident_tpu.render.renderer import render_frame
-    from trident_tpu.render.types import AiBlend, SkyboxCube
+    from trident.render.lights import gather_lights
+    from trident.render.renderer import render_frame
+    from trident.render.types import AiBlend, SkyboxCube
 
     r, reg = _grid_renderer()
     packed = r.geometry.packed()
@@ -102,52 +102,3 @@ def test_render_frame_broadcast_matches_gather():
                                   np.asarray(fast.color))
     np.testing.assert_array_equal(np.asarray(base.tri_id),
                                   np.asarray(fast.tri_id))
-
-
-def test_planar_chain_bit_identical():
-    """TRIDENT_PLANAR (stack-free corner→records chain): the planar
-    column consumers must reproduce the stacked-intermediate path
-    BIT-EXACTLY — identical fma chains, only the assembly layout
-    differs — for both the resolve records and the visibility records,
-    and for the whole rendered frame."""
-    from trident_tpu.ops import planes as planes_mod
-    from trident_tpu.ops.corner import build_draw_rows, corner_stage
-    from trident_tpu.ops.raster_pallas import _build_records
-    from trident_tpu.render.frame import build_draw_params, gather_mesh_draws
-
-    r, reg = _grid_renderer()
-    packed = r.geometry.packed()
-    records = gather_mesh_draws(reg, r.geometry)
-    plan, tri_draw = r._plan_cache.plan(packed, records, r.geometry.version)
-    params, palette, shade = build_draw_params(
-        records, plan.num_draws, material_table=r.geometry.material_table())
-    corner_t = r._plan_cache.corner_table(packed)
-    cam = r.editor_camera.params()
-    tex = r.textures.device_arrays()
-    tex_row = tex.sizes[params.texture_slot].astype(jnp.float32)
-    draw_consts = jnp.concatenate([shade, tex_row], axis=1)
-    rows = build_draw_rows(params, cam, 96, 96, draw_consts=draw_consts)
-    cs = corner_stage(corner_t, rows, tri_draw, plan.tri_valid, 96, 96)
-
-    stacked = planes_mod.build_resolve_cols(
-        cs.setup, cs.corner_nrm, cs.corner_uv, tri_draw, draw_consts,
-        consts_rows=cs.consts)
-    planar = planes_mod.build_resolve_cols_planar(cs.cols)
-    np.testing.assert_array_equal(np.asarray(stacked), np.asarray(planar))
-
-    t = cs.setup.edge.shape[0]
-    tpad = -(-t // 256) * 256
-    vis_stacked = _build_records(cs.setup, tpad)
-    vis_planar = _build_records(cs.setup, tpad, setup_cols=cs.cols.setup)
-    np.testing.assert_array_equal(np.asarray(vis_stacked),
-                                  np.asarray(vis_planar))
-
-
-def test_render_frame_planar_matches_stacked(monkeypatch):
-    from trident_tpu.ops import planes as planes_mod
-
-    frames = {}
-    for planar in (False, True):
-        monkeypatch.setattr(planes_mod, "PLANAR", planar)
-        frames[planar] = _grid_renderer()[0].read_frame()
-    np.testing.assert_array_equal(frames[False], frames[True])

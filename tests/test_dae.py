@@ -8,7 +8,7 @@ Mixamo emit) and loads them through the public load_model path
 import numpy as np
 import pytest
 
-from trident_tpu.assets.model_loader import load_model
+from trident.assets.model_loader import load_model
 
 _STATIC = """<?xml version="1.0" encoding="utf-8"?>
 <COLLADA xmlns="http://www.collada.org/2005/11/COLLADASchema" version="1.4.1">

@@ -4,20 +4,20 @@ triangles (global-chunk fallback), texture slot exhaustion, bone caps."""
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
-from trident_tpu.ops.raster_pallas import visibility_pallas
-from trident_tpu.ops.raster_ref import visibility_ref
-from trident_tpu.ops.vertex import triangle_setup
+from trident.ops.raster import visibility
+from trident.ops.raster_ref import visibility_ref
+from trident.ops.vertex import triangle_setup
 
 
 def _vis_both(clip, tri_vtx, valid, w, h):
+    """Oracle and the binned Triton kernel (Pallas interpreter)."""
     setup = triangle_setup(jnp.asarray(clip), jnp.asarray(tri_vtx),
                            jnp.asarray(valid), w, h)
     ref = visibility_ref(setup, w, h)
-    with pltpu.force_tpu_interpret_mode():
-        pal = visibility_pallas(setup, w, h)
+    pal = jax.jit(lambda s: visibility(s, w, h, interpret=True))(setup)
     return ref, pal
 
 
@@ -45,7 +45,7 @@ def test_near_plane_crossing_triangle():
 
 def test_huge_triangle_global_path():
     """One triangle covering the whole screen exceeds the binning span and
-    must flow through the global-chunk fallback."""
+    must flow through the whale (every-tile) path."""
     w, h = 256, 128
     clip = np.array([
         [-4.0, -4.0, 0.5, 1.0],
@@ -78,7 +78,7 @@ def test_mixed_huge_and_small():
 
 
 def test_texture_slot_exhaustion():
-    from trident_tpu.render.textures import TextureSlots
+    from trident.render.textures import TextureSlots
 
     slots = TextureSlots(max_slots=4, edge=8)
     a = slots.acquire("a", np.zeros((4, 4, 4), np.uint8))
@@ -91,7 +91,7 @@ def test_texture_slot_exhaustion():
 
 
 def test_bone_cap_respected():
-    from trident_tpu.render.frame import DrawRecord, build_draw_params
+    from trident.render.frame import DrawRecord, build_draw_params
 
     bones = np.tile(np.eye(4, dtype=np.float32), (200, 1, 1))
     rec = DrawRecord(entity=1, mesh_index=0, model=np.eye(4, dtype=np.float32),

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from trident_tpu.core.alloc import AllocationTracker, device_memory_stats
-from trident_tpu.core.config import EngineConfig, RenderConfig
+from trident.core.alloc import AllocationTracker, device_memory_stats
+from trident.core.config import EngineConfig, RenderConfig
 
 
 def test_render_command_facade(tmp_path):
-    from trident_tpu.ecs.components import MeshComponent, TransformComponent
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.render.command import RenderCommand as RC
+    from trident.ecs.components import MeshComponent, TransformComponent
+    from trident.geometry.primitives import PrimitiveType
+    from trident.render.command import RenderCommand as RC
 
     RC.init(EngineConfig(render=RenderConfig(width=64, height=64,
                                              use_pallas=False)))
@@ -59,8 +59,8 @@ def test_allocation_tracker():
 
 def test_checkpoint_validation(tmp_path):
     import jax
-    from trident_tpu.ai.train import TrainConfig, create_state, save_checkpoint
-    from trident_tpu.ai.validate import validate_checkpoint
+    from trident.ai.train import TrainConfig, create_state, save_checkpoint
+    from trident.ai.validate import validate_checkpoint
 
     bad = validate_checkpoint(str(tmp_path / "nope"))
     assert not bad.ok and "not found" in bad.message
@@ -80,10 +80,10 @@ def test_checkpoint_validation(tmp_path):
 
 def test_entity_picking():
     import numpy as np
-    from trident_tpu.ecs.components import MeshComponent, TransformComponent
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.render.renderer import Renderer
+    from trident.ecs.components import MeshComponent, TransformComponent
+    from trident.ecs.registry import Registry
+    from trident.geometry.primitives import PrimitiveType
+    from trident.render.renderer import Renderer
 
     r = Renderer(EngineConfig(render=RenderConfig(width=96, height=96,
                                                   use_pallas=False)))

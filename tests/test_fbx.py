@@ -12,7 +12,7 @@ import unittest.mock as mock
 import numpy as np
 import pytest
 
-from trident_tpu.assets.model_loader import load_model
+from trident.assets.model_loader import load_model
 
 
 # -- minimal binary FBX writer -------------------------------------------------
@@ -276,11 +276,11 @@ def test_fbx_renders_skinned(tmp_path):
     """End-to-end: the skinned FBX imports as entities, animates through
     the ECS AnimationSystem and renders (same drive as the glTF test,
     tests/test_assets.py::test_skinned_render_end_to_end)."""
-    from trident_tpu.assets.scene_loader import import_model_entities
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import AnimationComponent
-    from trident_tpu.ecs.scene import Scene
-    from trident_tpu.render.renderer import Renderer
+    from trident.assets.scene_loader import import_model_entities
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.components import AnimationComponent
+    from trident.ecs.scene import Scene
+    from trident.render.renderer import Renderer
 
     path = str(tmp_path / "arm.fbx")
     _write_skinned_two_bone(path)

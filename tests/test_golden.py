@@ -9,14 +9,14 @@ import os
 
 import numpy as np
 
-from trident_tpu.core.config import EngineConfig, RenderConfig
-from trident_tpu.ecs.components import (
+from trident.core.config import EngineConfig, RenderConfig
+from trident.ecs.components import (
     LightComponent, LightType, MeshComponent, TextureComponent, TransformComponent,
 )
-from trident_tpu.ecs.registry import Registry
-from trident_tpu.geometry.primitives import PrimitiveType
-from trident_tpu.io.image import checkerboard, load_rgba8, save_png
-from trident_tpu.render.renderer import Renderer
+from trident.ecs.registry import Registry
+from trident.geometry.primitives import PrimitiveType
+from trident.io.image import checkerboard, load_rgba8, save_png
+from trident.render.renderer import Renderer
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "scene_128.png")
 

@@ -6,7 +6,7 @@ import pytest
 
 
 def test_ktx2_roundtrip_all_schemes(tmp_path):
-    from trident_tpu.assets.ktx2 import load_ktx2_rgba8, write_ktx2
+    from trident.assets.ktx2 import load_ktx2_rgba8, write_ktx2
 
     rng = np.random.default_rng(0)
     tex = rng.integers(0, 255, (32, 48, 4), np.uint8)
@@ -17,7 +17,7 @@ def test_ktx2_roundtrip_all_schemes(tmp_path):
 
 
 def test_ktx2_rgb_gets_opaque_alpha(tmp_path):
-    from trident_tpu.assets.ktx2 import load_ktx2_rgba8, write_ktx2
+    from trident.assets.ktx2 import load_ktx2_rgba8, write_ktx2
 
     tex = np.full((8, 8, 3), 7, np.uint8)
     p = str(tmp_path / "rgb.ktx2")
@@ -28,8 +28,8 @@ def test_ktx2_rgb_gets_opaque_alpha(tmp_path):
 
 
 def test_ktx2_cubemap_and_skybox_path(tmp_path):
-    from trident_tpu.assets.ktx2 import load_ktx2_cubemap, write_ktx2
-    from trident_tpu.assets.skybox import load_skybox
+    from trident.assets.ktx2 import load_ktx2_cubemap, write_ktx2
+    from trident.assets.skybox import load_skybox
 
     rng = np.random.default_rng(1)
     faces = rng.integers(0, 255, (6, 16, 16, 4), np.uint8)
@@ -45,7 +45,7 @@ def test_ktx2_cubemap_and_skybox_path(tmp_path):
 def test_ktx2_basis_rejected(tmp_path):
     import struct
 
-    from trident_tpu.assets.ktx2 import _KTX2_MAGIC, Ktx2File
+    from trident.assets.ktx2 import _KTX2_MAGIC, Ktx2File
 
     p = str(tmp_path / "basis.ktx2")
     with open(p, "wb") as f:  # vkFormat 0 (UNDEFINED) + BasisLZ scheme
@@ -56,8 +56,8 @@ def test_ktx2_basis_rejected(tmp_path):
 
 
 def test_load_rgba8_dispatches_ktx2_and_svg(tmp_path):
-    from trident_tpu.assets.ktx2 import write_ktx2
-    from trident_tpu.io.image import load_rgba8
+    from trident.assets.ktx2 import write_ktx2
+    from trident.io.image import load_rgba8
 
     tex = np.arange(8 * 8 * 4, dtype=np.uint8).reshape(8, 8, 4)
     p = str(tmp_path / "x.ktx2")
@@ -74,7 +74,7 @@ def test_load_rgba8_dispatches_ktx2_and_svg(tmp_path):
 
 
 def _raster(svg, **kw):
-    from trident_tpu.io.svg import rasterize_svg
+    from trident.io.svg import rasterize_svg
 
     return rasterize_svg(svg, **kw)
 
@@ -159,8 +159,8 @@ def test_ktx2_file_mip_chain_ingested(tmp_path):
     the texture pyramid uses the AUTHOR's mips (distinct colors here)
     instead of box-downsampling mip 0 — libktx file-mip ingestion parity
     (TextureLoader.cpp:417)."""
-    from trident_tpu.assets.ktx2 import load_ktx2_rgba8_mips, write_ktx2
-    from trident_tpu.render.textures import TextureSlots
+    from trident.assets.ktx2 import load_ktx2_rgba8_mips, write_ktx2
+    from trident.render.textures import TextureSlots
 
     red = np.zeros((4, 4, 4), np.uint8); red[..., 0] = 255; red[..., 3] = 255
     green = np.zeros((2, 2, 4), np.uint8); green[..., 1] = 200; green[..., 3] = 255
@@ -194,7 +194,7 @@ def test_ktx2_file_mip_chain_ingested(tmp_path):
 def test_ktx2_partial_mip_chain_falls_back_to_box(tmp_path):
     """A file carrying only SOME levels: matching sizes use the file mip,
     the rest box-downsample from the previous level."""
-    from trident_tpu.render.textures import TextureSlots
+    from trident.render.textures import TextureSlots
 
     red = np.zeros((4, 4, 4), np.uint8); red[..., 0] = 255; red[..., 3] = 255
     green = np.zeros((2, 2, 4), np.uint8); green[..., 1] = 200; green[..., 3] = 255
@@ -261,7 +261,7 @@ def test_ktx2_array_stack_roundtrip(tmp_path):
     previously said layerCount=0 and readers dropped N-1 images)."""
     import numpy as np
 
-    from trident_tpu.assets.ktx2 import Ktx2File, write_ktx2
+    from trident.assets.ktx2 import Ktx2File, write_ktx2
 
     rng = np.random.default_rng(3)
     stack = rng.integers(0, 256, (4, 8, 8, 4), dtype=np.uint8)

@@ -4,15 +4,15 @@ validated field get/set, schemas, dict round-trip."""
 import numpy as np
 import pytest
 
-from trident_tpu.ecs.components import (
+from trident.ecs.components import (
     LightComponent, LightType, MeshComponent, TagComponent,
     TransformComponent,
 )
-from trident_tpu.ecs.inspect import (
+from trident.ecs.inspect import (
     apply_component, component_schema, component_type, get_field,
     list_entity, serialize_component, set_field,
 )
-from trident_tpu.ecs.registry import Registry
+from trident.ecs.registry import Registry
 
 
 @pytest.fixture
@@ -77,7 +77,7 @@ def test_set_scalar_coercions(reg):
 
 def test_opaque_fields_rejected(reg):
     r, e = reg
-    from trident_tpu.ecs.components import AnimationComponent
+    from trident.ecs.components import AnimationComponent
 
     r.add(e, AnimationComponent())
     with pytest.raises(ValueError, match="runtime cache"):
@@ -102,7 +102,7 @@ def test_list_entity_and_roundtrip(reg):
 
 def test_texture_path_edit_marks_dirty(reg):
     r, e = reg
-    from trident_tpu.ecs.components import TextureComponent
+    from trident.ecs.components import TextureComponent
 
     tc = r.add(e, TextureComponent(path="a.png"))
     tc.dirty = False
@@ -111,7 +111,7 @@ def test_texture_path_edit_marks_dirty(reg):
 
 
 def test_facade_inspector_surface():
-    from trident_tpu.render.command import RenderCommand
+    from trident.render.command import RenderCommand
 
     app = RenderCommand.init()
     try:

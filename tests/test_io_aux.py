@@ -9,17 +9,17 @@ import time
 import numpy as np
 import pytest
 
-from trident_tpu.core.config import EngineConfig
-from trident_tpu.core.events import (
+from trident.core.config import EngineConfig
+from trident.core.events import (
     EventDispatcher, FileDropEvent, KeyPressedEvent, KeyReleasedEvent,
     MouseMovedEvent, WindowResizeEvent,
 )
-from trident_tpu.core.filewatch import FileWatcher, ReloadType
-from trident_tpu.core.input import Input
-from trident_tpu.core.timing import FrameTimingRing
-from trident_tpu.io.dataset_recorder import FrameDatasetRecorder
-from trident_tpu.io.text_overlay import TextOverlay, composite_overlay
-from trident_tpu.io.video import VideoEncoder, rgb_to_yuv420
+from trident.core.filewatch import FileWatcher, ReloadType
+from trident.core.input import Input
+from trident.core.timing import FrameTimingRing
+from trident.io.dataset_recorder import FrameDatasetRecorder
+from trident.io.text_overlay import TextOverlay, composite_overlay
+from trident.io.video import VideoEncoder, rgb_to_yuv420
 
 
 def test_dataset_recorder_roundtrip(tmp_path):
@@ -240,7 +240,7 @@ def test_overlay_queue_consumed_on_present():
     """present() consumes the viewport's queued text (draw-list
     semantics): nothing calls begin_frame in production, so without this
     every string ever queued re-rendered forever."""
-    from trident_tpu.io.text_overlay import TextOverlay
+    from trident.io.text_overlay import TextOverlay
 
     ov = TextOverlay()
     ov.queue_text(0, "fps 60", 2, 2)

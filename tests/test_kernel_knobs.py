@@ -1,24 +1,23 @@
-"""Kernel-knob unification (ops/kernel_knobs.py, SURVEY §5).
+"""Upscaler knob registry (ops/kernel_knobs.py, SURVEY §5): knobs are
+settable per run, typos and bad values fail loudly, and renderers with
+different knob sets keep separate traces in one process."""
 
-The TRIDENT_* env vars remain import-time defaults, but knobs must be
-settable per-run: RenderConfig.kernel drives them programmatically and
-two differently-configured renderers must coexist in one process."""
+import sys
 
 import numpy as np
 import pytest
 
-from trident_tpu.ops import kernel_knobs, raster_pallas
+from trident.ai import upscaler
+from trident.ops import kernel_knobs
 
 
 def test_snapshot_apply_restore_roundtrip():
     before = kernel_knobs.snapshot()
-    prev = kernel_knobs.apply({"chunk": 128, "sub": 16, "zskip": True})
+    prev = kernel_knobs.apply({"d2s_mode": "pad", "upscale_dtype": "f32"})
     try:
-        assert raster_pallas.CHUNK == 128
-        assert raster_pallas.NSUB == 8          # derived recomputed
-        assert raster_pallas.ZSKIP is True
-        assert kernel_knobs.trace_key() != tuple(
-            sorted((k, v) for k, v in before.items()))
+        assert upscaler.D2S_MODE == "pad"
+        assert upscaler.UPSCALE_DTYPE == "f32"
+        assert kernel_knobs.trace_key() != tuple(sorted(before.items()))
     finally:
         kernel_knobs.apply(prev)
     assert kernel_knobs.snapshot() == before
@@ -26,58 +25,52 @@ def test_snapshot_apply_restore_roundtrip():
 
 def test_unknown_and_invalid_knobs_fail_loudly():
     with pytest.raises(KeyError):
-        kernel_knobs.apply({"chnk": 128})       # typo must not silently noop
+        kernel_knobs.apply({"d2s_mdoe": "pad"})  # typo must not silently noop
     before = kernel_knobs.snapshot()
     with pytest.raises(ValueError):
-        kernel_knobs.apply({"chunk": 100})      # not a multiple of SUB=16
-    # failed apply restored everything (all-or-nothing)
-    assert kernel_knobs.snapshot() == before
+        kernel_knobs.apply({"d2s_mode": "bogus"})
+    assert kernel_knobs.snapshot() == before     # all-or-nothing rollback
 
 
 def test_overrides_context_manager():
-    base = raster_pallas.CHUNK
-    # legacy masked layout: dynhit pinned off (32 subs exceed the DYNHIT
-    # packed-digit SMEM budget by design — see raster_pallas validation)
-    with kernel_knobs.overrides(chunk=512, sub=16, dynhit=False):
-        assert raster_pallas.CHUNK == 512
-        assert raster_pallas.NSUB == 32
-        assert raster_pallas.MASK_WORDS == 2    # 32 sub bits > one word
-    assert raster_pallas.CHUNK == base
+    base = upscaler.D2S_MODE
+    with kernel_knobs.overrides(d2s_mode="xla"):
+        assert upscaler.D2S_MODE == "xla"
+    assert upscaler.D2S_MODE == base
+
+
+def _ai_renderer(kernel):
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs import (
+        MeshComponent, Registry, TextureComponent, TransformComponent,
+    )
+    from trident.geometry.primitives import PrimitiveType
+    from trident.io.image import checkerboard
+    from trident.render.renderer import Renderer
+
+    r = Renderer(EngineConfig(render=RenderConfig(
+        width=64, height=64, ai_upscale=True, kernel=kernel)))
+    reg = Registry()
+    r.set_active_registry(reg)
+    slot = r.acquire_texture("checker", checkerboard(32, 4))
+    e = reg.create()
+    t = reg.add(e, TransformComponent())
+    t.rotation = np.array([20.0, 35.0, 0.0], np.float32)
+    reg.add(e, MeshComponent(mesh_index=r.ensure_primitive(PrimitiveType.CUBE)))
+    reg.add(e, TextureComponent(path="checker", slot=slot))
+    r.editor_camera.set_position([0, 0.6, 3.0])
+    r.editor_camera.look_at_target([0, 0, 0])
+    return r
 
 
 def test_two_kernel_configs_in_one_process():
-    """Two renderers with different kernel knobs render interleaved in one
-    process; both produce the same (knob-neutral) image. This is the
-    SURVEY §5 'config, not env sprawl' acceptance test."""
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs import (
-        MeshComponent, Registry, TextureComponent, TransformComponent,
-    )
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.io.image import checkerboard
-
-    def build(kernel):
-        from trident_tpu.render.renderer import Renderer
-
-        r = Renderer(EngineConfig(render=RenderConfig(
-            width=64, height=64, use_pallas=True, kernel=kernel)))
-        reg = Registry()
-        r.set_active_registry(reg)
-        slot = r.acquire_texture("checker", checkerboard(32, 4))
-        e = reg.create()
-        t = reg.add(e, TransformComponent())
-        t.rotation = np.array([20.0, 35.0, 0.0], np.float32)
-        reg.add(e, MeshComponent(
-            mesh_index=r.ensure_primitive(PrimitiveType.CUBE)))
-        reg.add(e, TextureComponent(path="checker", slot=slot))
-        r.editor_camera.set_position([0, 0.6, 3.0])
-        r.editor_camera.look_at_target([0, 0, 0])
-        return r
-
+    """Two renderers with different knob sets render interleaved in one
+    process; the depth-to-space modes are bit-exact relayouts, so both
+    images are identical while their traces stay separate."""
     base = kernel_knobs.snapshot()
     try:
-        ra = build({"chunk": 128, "qgate": True, "dynhit": False})
-        rb = build({"chunk": 256, "qgate": False, "dynhit": False})
+        ra = _ai_renderer({"d2s_mode": "pad"})
+        rb = _ai_renderer({"d2s_mode": "xla"})
         fa1 = np.asarray(ra.read_frame())
         fb1 = np.asarray(rb.read_frame())
         fa2 = np.asarray(ra.read_frame())   # interleave back to A
@@ -88,46 +81,40 @@ def test_two_kernel_configs_in_one_process():
         kernel_knobs.apply(base)
 
 
-def test_shadow_scenes_get_zskip_policy_without_leaking():
-    """Engine policy: shadows=True renders with the hierarchical-Z skip
-    (+9% on overdraw scenes, r4hw2); a later plain renderer in the same
-    process must build from the env-default baseline, not inherit it."""
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.render.renderer import Renderer
+def test_renderer_without_ai_has_no_knob_key():
+    """Without an AI feature a renderer keys no knobs (and needs no ai
+    package); with one it keys the env-default baseline plus its own
+    overrides."""
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.render.renderer import Renderer
 
     base = kernel_knobs.snapshot()
     try:
-        rs = Renderer(EngineConfig(render=RenderConfig(
-            width=32, height=32, shadows=True)))
-        assert raster_pallas.ZSKIP and raster_pallas.ZORDER
-        assert dict(rs._kcfg)["zskip"] is True
-        # explicit kernel config beats the policy
+        plain = Renderer(EngineConfig(render=RenderConfig(width=32,
+                                                          height=32)))
+        assert plain._kcfg is None
         ro = Renderer(EngineConfig(render=RenderConfig(
-            width=32, height=32, shadows=True, kernel={"zskip": False})))
-        assert raster_pallas.ZSKIP is False
-        assert dict(ro._kcfg)["zskip"] is False
-        # a renderer with any kernel config resets to env baseline first
-        rp2 = Renderer(EngineConfig(render=RenderConfig(
-            width=32, height=32, kernel={})))
-        assert dict(rp2._kcfg)["zskip"] == kernel_knobs.env_defaults()["zskip"]
+            width=32, height=32, ai_upscale=True,
+            kernel={"upscale_dtype": "f32"})))
+        assert dict(ro._kcfg)["upscale_dtype"] == "f32"
     finally:
         kernel_knobs.apply(base)
 
 
 def test_default_renderer_resets_leaked_globals():
-    """A default-config Renderer (kernel=None, shadows=False) constructed
-    after a sweep leaked knob overrides must snapshot the env-default
-    baseline, not the leaked globals (advisor round-4 finding)."""
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.render.renderer import Renderer
+    """An AI renderer with no overrides constructed after a sweep leaked
+    knob overrides must snapshot the env-default baseline, not the leaked
+    globals (advisor round-4 finding)."""
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.render.renderer import Renderer
 
     base = kernel_knobs.snapshot()
     try:
-        kernel_knobs.apply({"zskip": True, "chunk": 128})   # leaked sweep
-        rd = Renderer(EngineConfig(render=RenderConfig(width=32, height=32)))
+        kernel_knobs.apply({"d2s_mode": "pad"})        # leaked sweep
+        rd = Renderer(EngineConfig(render=RenderConfig(
+            width=32, height=32, ai_upscale=True)))
         env = kernel_knobs.env_defaults()
-        assert dict(rd._kcfg)["zskip"] == env["zskip"]
-        assert dict(rd._kcfg)["chunk"] == env["chunk"]
-        assert raster_pallas.ZSKIP == env["zskip"]
+        assert dict(rd._kcfg)["d2s_mode"] == env["d2s_mode"]
+        assert upscaler.D2S_MODE == env["d2s_mode"]
     finally:
         kernel_knobs.apply(base)

@@ -33,7 +33,7 @@ def _assert_clean(load, path):
 
 
 def test_obj_fuzz(tmp_path, rng):
-    from trident_tpu.assets.model_loader import load_model
+    from trident.assets.model_loader import load_model
 
     src = ("v 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\nvt 1 0\nvt 0 1\n"
            "vn 0 0 1\nf 1/1/1 2/2/1 3/3/1\n").encode()
@@ -46,7 +46,7 @@ def test_obj_fuzz(tmp_path, rng):
 def test_fbx_fuzz(tmp_path, rng):
     from test_fbx import _write_static_cube  # the test-suite FBX writer
 
-    from trident_tpu.assets.model_loader import load_model
+    from trident.assets.model_loader import load_model
 
     good = tmp_path / "good.fbx"
     _write_static_cube(str(good))
@@ -58,7 +58,7 @@ def test_fbx_fuzz(tmp_path, rng):
 
 
 def test_dae_fuzz(tmp_path, rng):
-    from trident_tpu.assets.model_loader import load_model
+    from trident.assets.model_loader import load_model
 
     src = (b'<?xml version="1.0"?><COLLADA xmlns="http://www.collada.org/'
            b'2005/11/COLLADASchema" version="1.4.1"><library_geometries>'
@@ -75,7 +75,7 @@ def test_dae_fuzz(tmp_path, rng):
 
 
 def test_ktx2_fuzz(tmp_path, rng):
-    from trident_tpu.assets.ktx2 import load_ktx2_rgba8, write_ktx2
+    from trident.assets.ktx2 import load_ktx2_rgba8, write_ktx2
 
     p0 = tmp_path / "good.ktx2"
     write_ktx2(str(p0), np.zeros((8, 8, 4), np.uint8), scheme=3)
@@ -87,7 +87,7 @@ def test_ktx2_fuzz(tmp_path, rng):
 
 
 def test_svg_fuzz(tmp_path, rng):
-    from trident_tpu.io.svg import rasterize_svg_file
+    from trident.io.svg import rasterize_svg_file
 
     src = (b'<svg xmlns="http://www.w3.org/2000/svg" width="16" height="16">'
            b'<path d="M2 2 C 4 1, 8 1, 14 14 A 3 3 0 1 1 2 14 Z" '
@@ -101,7 +101,7 @@ def test_svg_fuzz(tmp_path, rng):
 def test_gltf_fuzz(tmp_path, rng):
     import json
 
-    from trident_tpu.assets.model_loader import load_model
+    from trident.assets.model_loader import load_model
 
     doc = {"asset": {"version": "2.0"},
            "scenes": [{"nodes": [0]}], "nodes": [{"mesh": 0}],
@@ -120,7 +120,7 @@ def test_gltf_fuzz(tmp_path, rng):
 
 
 def test_stl_fuzz(tmp_path, rng):
-    from trident_tpu.assets.model_loader import load_model
+    from trident.assets.model_loader import load_model
 
     # binary STL (with the evil "solid" prefix) + ASCII STL
     import struct as _s
@@ -145,7 +145,7 @@ def test_stl_fuzz(tmp_path, rng):
 def test_ply_fuzz(tmp_path, rng):
     import struct as _s
 
-    from trident_tpu.assets.model_loader import load_model
+    from trident.assets.model_loader import load_model
 
     ascii_src = (b"ply\nformat ascii 1.0\nelement vertex 3\n"
                  b"property float x\nproperty float y\nproperty float z\n"

@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from trident_tpu.mathx import (
+from trident.mathx import (
     compose_trs, decompose_trs, look_at, normal_matrix,
     perspective_rh_zo, ortho_rh_zo,
     quat_from_euler_deg, quat_mul, quat_slerp, quat_to_mat3, quat_identity,
 )
-from trident_tpu.mathx.transforms import euler_deg_to_mat3
+from trident.mathx.transforms import euler_deg_to_mat3
 
 
 def test_compose_identity():

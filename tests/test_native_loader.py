@@ -6,8 +6,8 @@ import time
 import numpy as np
 import pytest
 
-from trident_tpu.assets.model_loader import load_obj
-from trident_tpu.assets.native import get_lib, load_obj_native
+from trident.assets.model_loader import load_obj
+from trident.assets.native import get_lib, load_obj_native
 
 
 def write_obj(tmp_path, quads=200):

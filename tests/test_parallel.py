@@ -7,7 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trident_tpu.parallel.mesh import make_mesh
+from trident.parallel.mesh import make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -18,12 +18,12 @@ def eight_devices():
 
 
 def build_scene(w, h):
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import MeshComponent, TextureComponent, TransformComponent
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.io.image import checkerboard
-    from trident_tpu.render.renderer import Renderer
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.components import MeshComponent, TextureComponent, TransformComponent
+    from trident.ecs.registry import Registry
+    from trident.geometry.primitives import PrimitiveType
+    from trident.io.image import checkerboard
+    from trident.render.renderer import Renderer
 
     r = Renderer(EngineConfig(render=RenderConfig(width=w, height=h,
                                                   use_pallas=False)))
@@ -42,12 +42,12 @@ def build_scene(w, h):
 
 
 def _frame_inputs(r):
-    from trident_tpu.render.frame import (
+    from trident.render.frame import (
         build_draw_params, build_draw_plan, gather_mesh_draws,
         geometry_to_device,
     )
-    from trident_tpu.render.lights import gather_lights
-    from trident_tpu.render.types import AiBlend, SkyboxCube
+    from trident.render.lights import gather_lights
+    from trident.render.types import AiBlend, SkyboxCube
 
     packed = r.geometry.packed()
     geo = geometry_to_device(packed)
@@ -66,22 +66,19 @@ def _frame_inputs(r):
             sky, ai), records, packed
 
 
-@pytest.mark.parametrize("raster,forward", [("ref", False),
-                                            ("pallas", True)])
-def test_banded_render_matches_single_exactly(eight_devices, raster, forward):
+@pytest.mark.parametrize("raster", ["ref", "pallas"])
+def test_banded_render_matches_single_exactly(eight_devices, raster):
     """The banded SPMD decomposition evaluates global-pixel arithmetic —
     bands match the single-chip frame to ≤1 LSB on a handful of pixels
     (XLA's shape-dependent FMA fusion can differ by 1 ulp between the
     sliced and full graphs), with NO seam structure.
 
-    Two variants only (suite-time budget — each banded interpret graph
+    Two variants (suite-time budget — each banded interpret graph
     compiles for minutes): `ref` proves the banding math against the jnp
-    oracle, `pallas+forward` is the production banded configuration. The
-    pallas+deferred-gather combination (reachable but non-default) was
-    dropped; its banding logic is the same code path as pallas+forward."""
+    oracle, `pallas` is the production banded configuration."""
     from jax.sharding import Mesh
-    from trident_tpu.parallel.framebuffer import render_frame_banded
-    from trident_tpu.render.renderer import render_frame
+    from trident.parallel.framebuffer import render_frame_banded
+    from trident.render.renderer import render_frame
 
     w, h = 128, 128
     r = build_scene(w, h)
@@ -90,7 +87,7 @@ def test_banded_render_matches_single_exactly(eight_devices, raster, forward):
     import functools
 
     common = dict(width=w, height=h, clear_color=(0.05, 0.05, 0.08, 1.0),
-                  raster=raster, skinned=False, forward_shading=forward)
+                  raster=raster, skinned=False)
     # jit both renders: EAGER execution of the interpret-mode kernels is
     # what made this test take minutes (each op dispatches separately);
     # jitted, the graphs compile in seconds and hit the persistent cache
@@ -115,17 +112,17 @@ def test_banded_render_matches_single_exactly(eight_devices, raster, forward):
 
 @pytest.mark.parametrize("corner", [True])
 def test_banded_render_full_featureset(eight_devices, corner):
-    """Banded path with the whole pipeline on: pallas raster + in-kernel
-    forward resolve + directional shadow map (banded) + PCF + SSAA + bloom,
+    """Banded path with the whole pipeline on: binned raster + plane-gather
+    shading + directional shadow map (banded) + PCF + SSAA + bloom,
     compared against the identical single-chip render, on the corner-major
     (static corner table) PRODUCTION geometry path. (The indexed variant
     was dropped for suite cost — each banded graph compiles for minutes —
     and stays covered without shadows/SSAA by
     test_banded_render_matches_single_exactly.)"""
     from jax.sharding import Mesh
-    from trident_tpu.ops.shadow import light_camera, scene_bounds
-    from trident_tpu.parallel.framebuffer import render_frame_banded
-    from trident_tpu.render.renderer import render_frame
+    from trident.ops.shadow import light_camera, scene_bounds
+    from trident.parallel.framebuffer import render_frame_banded
+    from trident.render.renderer import render_frame
 
     # 32² frame / 2 bands: SSAA doubles the render to 64² = 2 bands of one
     # 32px tile row each — the smallest shape that still crosses a band
@@ -142,8 +139,7 @@ def test_banded_render_full_featureset(eight_devices, corner):
     import functools
 
     common = dict(width=w, height=h, clear_color=(0.05, 0.05, 0.08, 1.0),
-                  raster="pallas", skinned=False, forward_shading=True,
-                  shadow_size=32, shadow_pcf=True, supersample=2,
+                  raster="pallas", skinned=False, shadow_size=32, shadow_pcf=True, supersample=2,
                   bloom=True, bloom_threshold=0.5, bloom_strength=0.4)
     # jitted for the same suite-time reason as matches_single above
     single = jax.jit(functools.partial(
@@ -162,75 +158,13 @@ def test_banded_render_full_featureset(eight_devices, corner):
     assert np.asarray(out.aux).reshape(-1, 2).sum() == 0
 
 
-def test_banded_render_composes_with_texel_mxu(eight_devices, monkeypatch):
-    """The windowed one-hot texel sampler (ops/texel_pallas.py) inside
-    the banded shard_map: per-band block windows see band-local attribute
-    images, so the result must match the banded gather-path render to
-    fma-fusion noise (≤1 display LSB)."""
-    import functools
-
-    from jax.sharding import Mesh
-    from trident_tpu.ops import texel_pallas as tp
-    from trident_tpu.parallel.framebuffer import render_frame_banded
-
-    w, h = 128, 128
-    r = build_scene(w, h)
-    args, _, _ = _frame_inputs(r)
-    common = dict(width=w, height=h, clear_color=(0.05, 0.05, 0.08, 1.0),
-                  raster="pallas", skinned=False, forward_shading=True)
-    mesh = Mesh(np.array(eight_devices[:2]), ("fb",))
-
-    frames = {}
-    for mxu in (False, True):
-        monkeypatch.setattr(tp, "TEXEL_MXU", mxu)
-        out = jax.jit(functools.partial(
-            render_frame_banded, mesh, "fb", **common))(*args)
-        frames[mxu] = np.asarray(out.color).astype(int)
-    diff = np.abs(frames[True] - frames[False])
-    assert diff.max() <= 1
-    assert (diff > 0).mean() < 1e-3
-
-
-def test_banded_render_composes_with_ckern(eight_devices):
-    """The compact-bank visibility kernel (TRIDENT_CKERN) inside the
-    banded shard_map: the per-band binner gathers compact blocks from
-    band-local pair lists; frames must be BIT-IDENTICAL to the banded
-    masked-kernel render (same arithmetic, different work structure)."""
-    import functools
-
-    from jax.sharding import Mesh
-    from trident_tpu.ops import kernel_knobs
-    from trident_tpu.parallel.framebuffer import render_frame_banded
-
-    w, h = 128, 128
-    r = build_scene(w, h)
-    args, _, _ = _frame_inputs(r)
-    common = dict(width=w, height=h, clear_color=(0.05, 0.05, 0.08, 1.0),
-                  raster="pallas", skinned=False, forward_shading=True)
-    mesh = Mesh(np.array(eight_devices[:2]), ("fb",))
-
-    base = kernel_knobs.snapshot()
-    frames = {}
-    try:
-        for ck in (False, True):
-            # dynhit assumes the dense masked layout — pin it off so both
-            # legs run the static structure CKERN composes with
-            kernel_knobs.apply({"ckern": ck, "dynhit": False})
-            out = jax.jit(functools.partial(
-                render_frame_banded, mesh, "fb", **common))(*args)
-            frames[ck] = np.asarray(out.color)
-    finally:
-        kernel_knobs.apply(base)
-    np.testing.assert_array_equal(frames[True], frames[False])
-
-
 def test_unet_dryrun_multichip(eight_devices):
     # 2 devices: same GSPMD + explicit-collective code paths at the
     # smallest mesh that still communicates. include_render=False: the
     # banded-render phases cost ~5 min of interpret-mode compile and are
     # covered by the banded-vs-single tests above AND by the driver's
     # full 8-device dryrun every round (suite-time budget)
-    from trident_tpu.parallel.dryrun import run_dryrun
+    from trident.parallel.dryrun import run_dryrun
 
     run_dryrun(2, include_render=False)
 
@@ -243,18 +177,18 @@ def test_banded_render_with_ai_upscale(eight_devices, tmp_path):
     result must match the single-chip upscaled render to ≤1 LSB."""
     import jax.numpy as jnp
 
-    from trident_tpu.ai.upscaler import init_upscaler, save_upscaler
+    from trident.ai.upscaler import init_upscaler, save_upscaler
 
     _, variables = init_upscaler(jax.random.PRNGKey(3), base_channels=8)
     save_upscaler(jax.device_get(variables["params"]), str(tmp_path))
 
-    from trident_tpu.core.config import AiConfig, EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import (
+    from trident.core.config import AiConfig, EngineConfig, RenderConfig
+    from trident.ecs.components import (
         MeshComponent, TextureComponent, TransformComponent)
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.io.image import checkerboard
-    from trident_tpu.render.renderer import Renderer
+    from trident.ecs.registry import Registry
+    from trident.geometry.primitives import PrimitiveType
+    from trident.io.image import checkerboard
+    from trident.render.renderer import Renderer
 
     frames = {}
     for bands in (1, 2):
@@ -282,15 +216,15 @@ def test_banded_render_with_ai_upscale(eight_devices, tmp_path):
 
 
 def test_banded_indivisible_heights_degrade(eight_devices, tmp_path):
-    """Heights that don't split into whole raster-tile rows per band must
-    DEGRADE (disable upscale / fall back to single-chip with a warning),
-    never raise at draw time (round-3 review finding)."""
-    from trident_tpu.ai.upscaler import init_upscaler, save_upscaler
-    from trident_tpu.core.config import AiConfig, EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import MeshComponent, TransformComponent
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.render.renderer import Renderer
+    """Heights that don't split evenly into the bands must DEGRADE
+    (disable upscale / fall back to single-chip with a warning), never
+    raise at draw time: viewports resize interactively."""
+    from trident.ai.upscaler import init_upscaler, save_upscaler
+    from trident.core.config import AiConfig, EngineConfig, RenderConfig
+    from trident.ecs.components import MeshComponent, TransformComponent
+    from trident.ecs.registry import Registry
+    from trident.geometry.primitives import PrimitiveType
+    from trident.render.renderer import Renderer
 
     _, variables = init_upscaler(jax.random.PRNGKey(4), base_channels=8)
     save_upscaler(jax.device_get(variables["params"]), str(tmp_path))
@@ -310,11 +244,11 @@ def test_banded_indivisible_heights_degrade(eight_devices, tmp_path):
         r.editor_camera.look_at_target([0, 0, 0])
         return r
 
-    # half-res height (96 → 48/band) not tile-divisible: upscale disabled,
-    # native banding (192 → 96/band) still runs
-    r = scene(128, 192, True, 2)
-    assert np.asarray(r.read_frame()).shape == (192, 128, 4)
+    # half-res height (95) does not split into 2 bands: upscale disabled,
+    # native banding (190 → 95/band) still runs
+    r = scene(128, 190, True, 2)
+    assert np.asarray(r.read_frame()).shape == (190, 128, 4)
 
-    # native height indivisible too (120 → 60/band): single-chip fallback
-    r2 = scene(128, 120, False, 2)
-    assert np.asarray(r2.read_frame()).shape == (120, 128, 4)
+    # native height indivisible too (121 rows): single-chip fallback
+    r2 = scene(128, 121, False, 2)
+    assert np.asarray(r2.read_frame()).shape == (121, 128, 4)

@@ -3,12 +3,12 @@
 import numpy as np
 import jax.numpy as jnp
 
-from trident_tpu.core.config import EngineConfig, RenderConfig
-from trident_tpu.ecs.components import LightComponent, LightType, MeshComponent, TransformComponent
-from trident_tpu.ecs.registry import Registry
-from trident_tpu.geometry.primitives import PrimitiveType
-from trident_tpu.ops.post import bloom, resolve_supersample
-from trident_tpu.render.renderer import Renderer
+from trident.core.config import EngineConfig, RenderConfig
+from trident.ecs.components import LightComponent, LightType, MeshComponent, TransformComponent
+from trident.ecs.registry import Registry
+from trident.geometry.primitives import PrimitiveType
+from trident.ops.post import bloom, resolve_supersample
+from trident.render.renderer import Renderer
 
 
 def test_resolve_supersample_box():

@@ -7,12 +7,12 @@ import jax
 
 
 def test_compilation_stats_counts_variants():
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import MeshComponent, TransformComponent
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.render.renderer import Renderer
-    from trident_tpu.utils import compilation_stats
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.components import MeshComponent, TransformComponent
+    from trident.ecs.registry import Registry
+    from trident.geometry.primitives import PrimitiveType
+    from trident.render.renderer import Renderer
+    from trident.utils import compilation_stats
 
     r = Renderer(EngineConfig(render=RenderConfig(width=32, height=32,
                                                   use_pallas=False)))
@@ -33,7 +33,7 @@ def test_compilation_stats_counts_variants():
 
 
 def test_profiler_noop_safe(tmp_path):
-    from trident_tpu.utils import Profiler, profile_block
+    from trident.utils import Profiler, profile_block
 
     p = Profiler(str(tmp_path / "traces"))
     started = p.start()
@@ -47,11 +47,11 @@ def test_profiler_noop_safe(tmp_path):
 
 def test_ai_blend_in_app_loop():
     """Frame interpolation feeds back into rendering through the app loop."""
-    from trident_tpu.ai.model import init_model
-    from trident_tpu.app import Application
-    from trident_tpu.core.config import AiConfig, EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import MeshComponent, TransformComponent
-    from trident_tpu.geometry.primitives import PrimitiveType
+    from trident.ai.model import init_model
+    from trident.app import Application
+    from trident.core.config import AiConfig, EngineConfig, RenderConfig
+    from trident.ecs.components import MeshComponent, TransformComponent
+    from trident.geometry.primitives import PrimitiveType
 
     cfg = EngineConfig(
         render=RenderConfig(width=48, height=48, use_pallas=False),
@@ -75,7 +75,7 @@ def test_ai_blend_in_app_loop():
     blended = False
     # generous budget: the interpolation worker is a plain thread and can
     # be starved for seconds when the machine is busy (observed flaking at
-    # 1.5 s while a TPU bench ran concurrently)
+    # 1.5 s while a benchmark ran concurrently)
     for k in range(100):
         app.update()
         out = app.render()

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from trident_tpu.core.config import EngineConfig, RenderConfig
-from trident_tpu.ecs.components import (
+from trident.core.config import EngineConfig, RenderConfig
+from trident.ecs.components import (
     LightComponent, LightType, MeshComponent, TransformComponent,
 )
-from trident_tpu.ecs.registry import Registry
-from trident_tpu.geometry.primitives import PrimitiveType
-from trident_tpu.io.image import checkerboard
-from trident_tpu.render.renderer import Renderer
+from trident.ecs.registry import Registry
+from trident.geometry.primitives import PrimitiveType
+from trident.io.image import checkerboard
+from trident.render.renderer import Renderer
 
 
 def make_renderer(w=128, h=128):
@@ -80,7 +80,7 @@ def test_texture_sampling():
     e = spawn_cube(r, reg)
     slot = r.acquire_texture("checker", checkerboard(32, 4))
     assert slot == 1
-    from trident_tpu.ecs.components import TextureComponent
+    from trident.ecs.components import TextureComponent
     reg.add(e, TextureComponent(path="checker", slot=slot))
     r.editor_camera.set_position([0, 0, 2])
     r.editor_camera.look_at_target([0, 0, 0])
@@ -135,11 +135,11 @@ def test_idle_frame_cache_reuses_output():
     any mutation invalidates."""
     import numpy as np
 
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import MeshComponent, TransformComponent
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.render.renderer import Renderer
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.components import MeshComponent, TransformComponent
+    from trident.ecs.registry import Registry
+    from trident.geometry.primitives import PrimitiveType
+    from trident.render.renderer import Renderer
 
     r = Renderer(EngineConfig(render=RenderConfig(width=32, height=32)))
     reg = Registry()

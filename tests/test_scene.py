@@ -5,14 +5,14 @@ import os
 import numpy as np
 import pytest
 
-from trident_tpu.ecs.components import (
+from trident.ecs.components import (
     AnimationComponent, CameraComponent, LightComponent, LightType,
     MeshComponent, ProjectionType, ScriptComponent, SpriteComponent,
     TagComponent, TextureComponent, TransformComponent, UUIDComponent,
 )
-from trident_tpu.ecs.registry import Registry
-from trident_tpu.ecs.scene import Scene
-from trident_tpu.geometry.primitives import PrimitiveType
+from trident.ecs.registry import Registry
+from trident.ecs.scene import Scene
+from trident.geometry.primitives import PrimitiveType
 
 
 def build_scene():
@@ -161,9 +161,9 @@ def test_load_reresolves_texture_slots(tmp_path):
     """Saved texture slots are session-local acquire order: load must
     re-resolve by PATH (lookup for live keys, slot-0 white otherwise),
     never trust the stored index."""
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.io.image import checkerboard
-    from trident_tpu.render.renderer import Renderer
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.io.image import checkerboard
+    from trident.render.renderer import Renderer
 
     r = Renderer(EngineConfig(render=RenderConfig(width=32, height=32,
                                                   use_pallas=False)))

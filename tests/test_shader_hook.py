@@ -10,12 +10,12 @@ import textwrap
 
 import numpy as np
 
-from trident_tpu.core.config import EngineConfig, RenderConfig
-from trident_tpu.ecs import (MeshComponent, Registry, TextureComponent,
+from trident.core.config import EngineConfig, RenderConfig
+from trident.ecs import (MeshComponent, Registry, TextureComponent,
                              TransformComponent)
-from trident_tpu.geometry.primitives import PrimitiveType
-from trident_tpu.io.image import checkerboard
-from trident_tpu.render.renderer import Renderer
+from trident.geometry.primitives import PrimitiveType
+from trident.io.image import checkerboard
+from trident.render.renderer import Renderer
 
 ALBEDO_SHADER = textwrap.dedent("""\
     def shade(world, normal, albedo, metallic, roughness,
@@ -128,7 +128,7 @@ def test_custom_shader_composes_with_banding(tmp_path):
 
 
 def test_watcher_reloads_active_shader(tmp_path):
-    from trident_tpu.app import Application
+    from trident.app import Application
 
     assets = tmp_path / "Assets"
     (assets / "Shaders").mkdir(parents=True)

@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from trident_tpu.core.config import EngineConfig, RenderConfig
-from trident_tpu.ecs.components import (
+from trident.core.config import EngineConfig, RenderConfig
+from trident.ecs.components import (
     LightComponent, LightType, MeshComponent, TransformComponent,
 )
-from trident_tpu.ecs.registry import Registry
-from trident_tpu.geometry.primitives import PrimitiveType
-from trident_tpu.render.renderer import Renderer
+from trident.ecs.registry import Registry
+from trident.geometry.primitives import PrimitiveType
+from trident.render.renderer import Renderer
 
 
 def build(shadows=True):
@@ -62,8 +62,8 @@ def test_pcf_fractional_penumbra():
     (comparison-before-blend), while pcf=False is strictly binary."""
     import jax.numpy as jnp
 
-    from trident_tpu.ops.shadow import shadow_factor
-    from trident_tpu.render.types import ShadowParams
+    from trident.ops.shadow import shadow_factor
+    from trident.render.types import ShadowParams
 
     s = 16
     depth = np.ones((s, s), np.float32)

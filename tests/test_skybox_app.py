@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from trident_tpu.assets.skybox import (
+from trident.assets.skybox import (
     discover_faces, load_skybox, solid_skybox,
 )
-from trident_tpu.io.image import save_png
+from trident.io.image import save_png
 
 
 def test_discover_and_load_faces(tmp_path):
@@ -31,9 +31,9 @@ def test_skybox_fallback(tmp_path):
 def test_skybox_renders_background():
     import jax
 
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.render.renderer import Renderer
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.registry import Registry
+    from trident.render.renderer import Renderer
 
     r = Renderer(EngineConfig(render=RenderConfig(width=64, height=64,
                                                   use_pallas=False)))
@@ -50,11 +50,11 @@ def test_skybox_renders_background():
 
 
 def test_application_headless_loop(tmp_path):
-    from trident_tpu.app import Application, Layer
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.core.events import FileDropEvent, WindowCloseEvent
-    from trident_tpu.ecs.components import MeshComponent, TransformComponent
-    from trident_tpu.geometry.primitives import PrimitiveType
+    from trident.app import Application, Layer
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.core.events import FileDropEvent, WindowCloseEvent
+    from trident.ecs.components import MeshComponent, TransformComponent
+    from trident.geometry.primitives import PrimitiveType
 
     app = Application(EngineConfig(render=RenderConfig(width=48, height=48,
                                                        use_pallas=False)))
@@ -114,11 +114,11 @@ def test_skybox_mip_chain_selects_by_viewport(tmp_path):
     TextureLoader.cpp:417) and rendering picks the level matching the
     viewport's angular resolution: a tiny viewport must sample a coarser
     level, and the frame must still show the right face color."""
-    from trident_tpu.assets.ktx2 import write_ktx2
-    from trident_tpu.assets.skybox import load_skybox_mips
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.render.renderer import Renderer
+    from trident.assets.ktx2 import write_ktx2
+    from trident.assets.skybox import load_skybox_mips
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.registry import Registry
+    from trident.render.renderer import Renderer
 
     # level 0: 256px red cube with green +y; level chain down to 2px —
     # coarser levels DIFFER (blue +y) so the test can tell which was used

@@ -7,7 +7,7 @@ import struct
 
 import numpy as np
 
-from trident_tpu.assets.model_loader import load_model
+from trident.assets.model_loader import load_model
 
 QUAD = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0],
                  [0, 0, 0], [1, 1, 0], [0, 1, 0]], np.float32)
@@ -95,10 +95,10 @@ def test_binary_ply(tmp_path):
 
 
 def test_stl_renders_end_to_end(tmp_path):
-    from trident_tpu.assets.scene_loader import import_model_entities
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.render.renderer import Renderer
+    from trident.assets.scene_loader import import_model_entities
+    from trident.core.config import EngineConfig, RenderConfig
+    from trident.ecs.registry import Registry
+    from trident.render.renderer import Renderer
 
     p = str(tmp_path / "quad.stl")
     _write_binary_stl(p, QUAD - 0.5)

@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from trident_tpu.geometry.mesh import morton_order
-from trident_tpu.ops.shading import sample_texture
-from trident_tpu.render.textures import TextureSlots
+from trident.geometry.mesh import morton_order
+from trident.ops.shading import sample_texture
+from trident.render.textures import TextureSlots
 
 
 def make_tex(edge=64):

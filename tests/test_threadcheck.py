@@ -5,10 +5,10 @@ import threading
 
 import pytest
 
-from trident_tpu.core.threadcheck import (
+from trident.core.threadcheck import (
     ThreadAffinityError, ThreadGuard, install_registry_guard)
-from trident_tpu.ecs.components import TagComponent, TransformComponent
-from trident_tpu.ecs.registry import Registry
+from trident.ecs.components import TagComponent, TransformComponent
+from trident.ecs.registry import Registry
 
 
 @pytest.fixture(autouse=True)
@@ -18,7 +18,7 @@ def _restore_guard_state():
     (e.g. the viewer's lock-serialized HTTP threads) runs unguarded,
     unless the env opted in for the whole run."""
     yield
-    from trident_tpu.core import threadcheck
+    from trident.core import threadcheck
 
     threadcheck.set_active(threadcheck.checks_enabled())
 

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 
 
 def test_net_shapes_and_range():
-    from trident_tpu.ai.upscaler import UpscalerNet, init_upscaler
+    from trident.ai.upscaler import UpscalerNet, init_upscaler
 
     model, variables = init_upscaler(jax.random.PRNGKey(0), base_channels=8)
     x = jnp.linspace(0, 1, 24 * 16 * 3).reshape(1, 24, 16, 3)
@@ -18,7 +18,7 @@ def test_net_shapes_and_range():
 
 
 def test_checkpoint_roundtrip_and_apply(tmp_path):
-    from trident_tpu.ai.upscaler import (
+    from trident.ai.upscaler import (
         apply_upscaler, init_upscaler, load_upscaler, save_upscaler)
 
     _, variables = init_upscaler(jax.random.PRNGKey(1), base_channels=8)
@@ -31,13 +31,13 @@ def test_checkpoint_roundtrip_and_apply(tmp_path):
 
 
 def _scene(tmp_path, upscaler_path, kernel=None):
-    from trident_tpu.core.config import AiConfig, EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import (
+    from trident.core.config import AiConfig, EngineConfig, RenderConfig
+    from trident.ecs.components import (
         MeshComponent, TextureComponent, TransformComponent)
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.io.image import checkerboard
-    from trident_tpu.render.renderer import Renderer
+    from trident.ecs.registry import Registry
+    from trident.geometry.primitives import PrimitiveType
+    from trident.io.image import checkerboard
+    from trident.render.renderer import Renderer
 
     r = Renderer(EngineConfig(
         render=RenderConfig(width=64, height=64, ai_upscale=True,
@@ -56,7 +56,7 @@ def _scene(tmp_path, upscaler_path, kernel=None):
 
 
 def test_renderer_upscale_mode(tmp_path):
-    from trident_tpu.ai.upscaler import init_upscaler, save_upscaler
+    from trident.ai.upscaler import init_upscaler, save_upscaler
 
     _, variables = init_upscaler(jax.random.PRNGKey(2), base_channels=8)
     save_upscaler(jax.device_get(variables["params"]), str(tmp_path))
@@ -73,9 +73,11 @@ def test_renderer_upscale_mode(tmp_path):
 
 
 def test_renderer_upscale_missing_checkpoint_degrades(tmp_path):
+    """A frame asked to reconstruct with a checkpoint that cannot load is
+    an error, not a silent native-res render."""
     r = _scene(tmp_path, str(tmp_path / "nope"))
-    frame = r.read_frame()                      # native-res fallback
-    assert frame.shape == (64, 64, 4)
+    with pytest.raises(FileNotFoundError):
+        r.read_frame()
     assert r._upscaler_params is None
 
 
@@ -83,9 +85,9 @@ def test_temporal_net_and_warp_identity():
     """Temporal path: with an identical camera, warp_previous must return
     the previous frame's own 2×2 blocks (s2d identity) with valid=1 on
     geometry pixels, and the temporal net must accept the 16-ch input."""
-    from trident_tpu.ai.upscaler import (
+    from trident.ai.upscaler import (
         TEMPORAL_CHANNELS, apply_upscaler, init_upscaler, warp_previous)
-    from trident_tpu.render.camera import EditorCamera
+    from trident.render.camera import EditorCamera
 
     cam = EditorCamera()
     cam.set_viewport_size(32, 32)
@@ -128,7 +130,7 @@ def test_temporal_net_and_warp_identity():
 
 
 def test_temporal_checkpoint_roundtrip(tmp_path):
-    from trident_tpu.ai.upscaler import (
+    from trident.ai.upscaler import (
         TEMPORAL_CHANNELS, init_upscaler, load_upscaler, save_upscaler,
         upscaler_in_channels)
 
@@ -142,7 +144,7 @@ def test_temporal_checkpoint_roundtrip(tmp_path):
 def test_renderer_temporal_upscale_chains_frames(tmp_path):
     """Renderer plumbing: a temporal checkpoint renders frame-to-frame,
     the second frame consuming the first as history (prev_state)."""
-    from trident_tpu.ai.upscaler import (
+    from trident.ai.upscaler import (
         TEMPORAL_CHANNELS, init_upscaler, save_upscaler)
 
     _, variables = init_upscaler(jax.random.PRNGKey(4), base_channels=8,
@@ -165,7 +167,7 @@ def test_shipped_checkpoint_beats_bilinear_psnr(tmp_path):
     Scripts/train_frame_generator.py's PSNR validation)."""
     import os
 
-    from trident_tpu.ai.upscaler import (
+    from trident.ai.upscaler import (
         apply_upscaler, load_upscaler, psnr, upscaler_in_channels,
         TEMPORAL_CHANNELS, warp_previous)
 
@@ -218,7 +220,7 @@ def test_depth_channel_layouts(tmp_path):
     """4 (rgb+depth) and 17 (rgb+depth+temporal) channel checkpoints:
     wants_* detection, apply with/without the depth input, and the
     renderer end-to-end (depth rides in from the half-res G-buffer)."""
-    from trident_tpu.ai.upscaler import (
+    from trident.ai.upscaler import (
         apply_upscaler, init_upscaler, save_upscaler, upscaler_wants_depth,
         upscaler_wants_temporal)
 
@@ -246,15 +248,14 @@ def test_depth_channel_layouts(tmp_path):
     assert frame[..., :3].max() > 60
 
 
-# ---- V2 reconstruction path (round 5): block-layout history, no 4K
-# relayouts (aibench r5hw2: warp 93 ms + d2s transpose ~26 ms) ----------
+# ---- V2 reconstruction path: block-layout history, no 4K relayouts ----
 
 
 def test_d2s_modes_bit_exact():
-    """All depth_to_space modes are exact relayouts: the one-hot MXU
+    """All depth_to_space modes are exact relayouts: the one-hot
     conv_transpose (HIGHEST) and the zero-interleave pad+add must equal
     the reference reshape/transpose BIT-FOR-BIT."""
-    from trident_tpu.ai.upscaler import depth_to_space
+    from trident.ai.upscaler import depth_to_space
 
     rng = np.random.default_rng(11)
     blocks = jnp.asarray(rng.random((24, 40, 12), np.float32))
@@ -268,7 +269,7 @@ def test_d2s_modes_bit_exact():
 def test_base_blocks_matches_resize():
     """The block-layout bilinear base (four phase-shifted half-res lerps)
     equals jax.image.resize's 2x bilinear up to f32 association."""
-    from trident_tpu.ai.upscaler import base_blocks, depth_to_space
+    from trident.ai.upscaler import base_blocks, depth_to_space
 
     rng = np.random.default_rng(12)
     img = jnp.asarray(rng.random((32, 48, 3), np.float32))
@@ -281,8 +282,8 @@ def test_v2_matches_v1_at_f32():
     """apply_upscaler_v2 (f32 compute) must reproduce apply_upscaler on
     non-trivial weights: same convs, residual re-associated into block
     layout, one exact depth_to_space."""
-    from trident_tpu.ai import upscaler as up
-    from trident_tpu.ops import kernel_knobs
+    from trident.ai import upscaler as up
+    from trident.ops import kernel_knobs
 
     _, variables = up.init_upscaler(jax.random.PRNGKey(5), base_channels=8,
                                     in_channels=17)
@@ -306,8 +307,8 @@ def test_warp_from_blocks_matches_warp_previous():
     """Given equal history VALUES (blocks = s2d of the full-res frame),
     the V2 warp must be bit-identical to the V1 warp — same reprojection,
     same gather, no space-to-depth."""
-    from trident_tpu.ai.upscaler import warp_from_blocks, warp_previous
-    from trident_tpu.render.camera import EditorCamera
+    from trident.ai.upscaler import warp_from_blocks, warp_previous
+    from trident.render.camera import EditorCamera
 
     cam = EditorCamera()
     cam.set_viewport_size(32, 32)
@@ -339,9 +340,9 @@ def test_renderer_v2_history_and_parity(tmp_path):
     (h, w, 12) uint8 blocks as prev_state and chains frames; the first
     frame matches the V1 path within 1 uint8 LSB (association-only
     differences at f32 compute)."""
-    from trident_tpu.ai.upscaler import (
+    from trident.ai.upscaler import (
         TEMPORAL_CHANNELS, init_upscaler, save_upscaler)
-    from trident_tpu.ops import kernel_knobs
+    from trident.ops import kernel_knobs
 
     _, variables = init_upscaler(jax.random.PRNGKey(7), base_channels=8,
                                  in_channels=TEMPORAL_CHANNELS)
@@ -368,8 +369,8 @@ def test_renderer_v2_history_and_parity(tmp_path):
 def test_v2_bf16_quality_close_to_f32(tmp_path):
     """bf16 conv compute (the V2 default) must not visibly regress
     quality: PSNR(v2_bf16, v2_f32) on a non-trivial net stays high."""
-    from trident_tpu.ai import upscaler as up
-    from trident_tpu.ops import kernel_knobs
+    from trident.ai import upscaler as up
+    from trident.ops import kernel_knobs
 
     _, variables = up.init_upscaler(jax.random.PRNGKey(8), base_channels=8,
                                     in_channels=17)
@@ -387,93 +388,3 @@ def test_v2_bf16_quality_close_to_f32(tmp_path):
         rgb16, _ = up.apply_upscaler_v2(params, img, temporal, d)
     p = float(up.psnr(rgb16, rgb32))
     assert p > 40.0, f"bf16 vs f32 PSNR {p:.1f} dB"
-
-
-def test_warp_mxu_matches_gather_where_valid():
-    """The tile-local MXU warp (ops/warp_pallas.py) must equal the XLA
-    gather warp bitwise wherever its band window covers the pixel; a
-    static camera covers EVERY pixel (zero motion → per-block spans are
-    the screen block's own 8 rows), so the outputs must be identical."""
-    from trident_tpu.ai.upscaler import warp_from_blocks
-    from trident_tpu.ops import kernel_knobs
-    from trident_tpu.render.camera import EditorCamera
-
-    cam = EditorCamera()
-    cam.set_viewport_size(64, 64)
-    cam.set_position([0, 0, 3])
-    cam.look_at_target([0, 0, 0])
-    p0 = cam.params()
-    vp0 = (np.asarray(p0.proj) @ np.asarray(p0.view)).astype(np.float32)
-
-    rng = np.random.default_rng(21)
-    blocks = rng.integers(0, 256, (32, 32, 12)).astype(np.uint8)
-    depth = rng.uniform(0.3, 0.7, (32, 32)).astype(np.float32)
-    depth[0, :4] = 1.0                     # background pixels → invalid
-    inv = np.linalg.inv(vp0).astype(np.float32)
-    args = (jnp.asarray(blocks), jnp.asarray(depth), jnp.asarray(inv),
-            jnp.asarray(vp0), 64, 64)
-    with kernel_knobs.overrides(warp_mxu=False):
-        ref = np.asarray(warp_from_blocks(*args))
-    with kernel_knobs.overrides(warp_mxu=True):
-        out = np.asarray(warp_from_blocks(*args))
-    assert (ref != out).sum() == 0
-    assert (ref[..., 12] == 1.0).any() and (ref[..., 12] == 0.0).any()
-
-
-def test_warp_mxu_band_drop_is_clean_and_small():
-    """With real inter-frame motion the MXU warp may drop pixels whose
-    source rows exceed the block's two-band window: dropped pixels must
-    be EXACTLY the spatial-fallback encoding (zeros + valid 0), all
-    others bit-equal to the gather, and the dropped fraction small."""
-    from trident_tpu.ai.upscaler import warp_from_blocks
-    from trident_tpu.ops import kernel_knobs
-    from trident_tpu.render.camera import EditorCamera
-
-    cam = EditorCamera()
-    cam.set_viewport_size(64, 64)
-    cam.set_position([0, 0, 3])
-    cam.look_at_target([0, 0, 0])
-    p0 = cam.params()
-    vp0 = (np.asarray(p0.proj) @ np.asarray(p0.view)).astype(np.float32)
-    cam.orbit([0, 0, 0], 6.0, 4.0)
-    p1 = cam.params()
-    vp1 = (np.asarray(p1.proj) @ np.asarray(p1.view)).astype(np.float32)
-
-    rng = np.random.default_rng(22)
-    blocks = rng.integers(0, 256, (32, 32, 12)).astype(np.uint8)
-    # mixed depths → parallax → some band-window misses are possible
-    depth = rng.uniform(0.2, 0.9, (32, 32)).astype(np.float32)
-    inv = np.linalg.inv(vp1).astype(np.float32)
-    args = (jnp.asarray(blocks), jnp.asarray(depth), jnp.asarray(inv),
-            jnp.asarray(vp0), 64, 64)
-    with kernel_knobs.overrides(warp_mxu=False):
-        ref = np.asarray(warp_from_blocks(*args))
-    with kernel_knobs.overrides(warp_mxu=True):
-        out = np.asarray(warp_from_blocks(*args))
-    ref_valid = ref[..., 12] == 1.0
-    out_valid = out[..., 12] == 1.0
-    assert (out_valid <= ref_valid).all()          # can only drop
-    same = (ref == out).all(axis=-1)
-    dropped = ref_valid & ~out_valid
-    assert (same | dropped).all()
-    assert (out[~out_valid] == 0.0).all()          # clean fallback coding
-    assert dropped.mean() < 0.05
-
-
-def test_warp_fetch_mxu_direct(rng):
-    """Kernel-level: exact byte fetch for in-window indices, zeros for
-    -1 sentinels, across band boundaries within a block's window."""
-    from trident_tpu.ops import warp_pallas as wp
-
-    blocks = rng.integers(0, 256, (96, 64, 12)).astype(np.uint8)
-    planes, h, w = wp.build_warp_planes(jnp.asarray(blocks))
-    hh, ww = 16, 40
-    by = rng.integers(0, 24, (hh, ww)).astype(np.int32)   # spans 1 window
-    bx = rng.integers(0, 64, (hh, ww)).astype(np.int32)
-    by[3, :7] = -1
-    bx[3, :7] = -1
-    out = np.asarray(wp.warp_fetch_mxu(planes, jnp.asarray(by),
-                                       jnp.asarray(bx), interpret=True))
-    want = blocks[np.clip(by, 0, 95), np.clip(bx, 0, 63)].astype(np.float32)
-    want[3, :7] = 0.0
-    assert (out != want).sum() == 0

@@ -54,7 +54,7 @@ def _post(srv, path, body=None):
 
 def test_page_and_frame(server):
     page = _get(server, "/")
-    assert b"trident_tpu viewer" in page
+    assert b"trident viewer" in page
     png = _get(server, "/api/frame")
     assert png[:8] == b"\x89PNG\r\n\x1a\n"
     state = json.loads(_get(server, "/api/state"))
@@ -146,7 +146,7 @@ def test_gizmo_rotate_and_scale_modes(server):
 
 
 def test_console_and_ai_state(server):
-    from trident_tpu.core.log import get_logger
+    from trident.core.log import get_logger
 
     get_logger("viewer-test").warning("panel smoke warning")
     entries = json.loads(_get(server, "/api/console?level=30"))["entries"]
@@ -196,7 +196,7 @@ def test_viewer_works_with_thread_checks_active(server):
     lock. The viewer now rebinds guard ownership under the lock, so the
     two compose (and a test that installs the guard can no longer break
     later viewer tests)."""
-    from trident_tpu.core import threadcheck
+    from trident.core import threadcheck
 
     threadcheck.install_registry_guard()
     try:
@@ -213,15 +213,15 @@ def test_animation_graph_panel(server):
     state machine (layers/states/transitions/params) and /api/anim_param
     edits drive transitions — the reference reserves this panel
     (Trident-Forge AnimationGraphPanel); here it is functional."""
-    from trident_tpu.anim.data import (
+    from trident.anim.data import (
         AnimationClip, Bone, Skeleton, TransformChannel,
     )
-    from trident_tpu.anim.blend_tree import ClipNode
-    from trident_tpu.anim.state_machine import (
+    from trident.anim.blend_tree import ClipNode
+    from trident.anim.state_machine import (
         AnimationStateMachine, Comparison, Condition, Layer, ParameterType,
         State, Transition,
     )
-    from trident_tpu.ecs.components import AnimationComponent
+    from trident.ecs.components import AnimationComponent
 
     sk = Skeleton(name="t")
     sk.add_bone(Bone(name="root", source_name="root"))
